@@ -1,4 +1,4 @@
-// C API for ctypes bindings (text2video_tpu/frontend/native.py).
+// C API for ctypes bindings (text2video/frontend/native.py).
 //
 // Memory model: feature matrices are returned as a single malloc'd
 // float buffer the caller frees with t2v_free. Model handles are opaque

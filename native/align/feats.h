@@ -1,6 +1,6 @@
 // Acoustic feature extraction (MFCC_0_D_A_Z / PLP_0_D_A_Z class, 39-dim).
 //
-// TPU-era replacement for the role HTK's HCopy played in the reference
+// Native replacement for the role HTK's HCopy played in the reference
 // pipeline (reference: aligner/align_english.py:243 — 39-dim PLP_0_D_A_Z,
 // 10 ms step, 25 ms Hamming window, NUMCHANS 20, LPCORDER 12, USEPOWER
 // per aligner/english/16000/config). Fresh implementation: framing +

@@ -1,6 +1,6 @@
 // Rule-based English letter-to-sound (grapheme -> ARPABET phonemes).
 //
-// TPU-era replacement for the role the vendored english2phoneme C tool
+// Native replacement for the role the vendored english2phoneme C tool
 // played in the reference pipeline: pronouncing out-of-dictionary words
 // during forced-alignment text prep (reference: aligner/align_english.py:70,
 // tools/english2phoneme/). Fresh implementation of the classic

@@ -1,7 +1,7 @@
 // Monophone diagonal-GMM HMMs + Viterbi forced alignment + flat-start
 // Viterbi training.
 //
-// TPU-era replacement for the role HTK's HVite (-a -m forced alignment;
+// Native replacement for the role HTK's HVite (-a -m forced alignment;
 // reference: aligner/align_english.py:251, HTKLib/HRec.c token passing)
 // and HERest played. The reference's acoustic models (hmmdefs) are
 // stripped from its mirror, so this library also trains its own models

@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 
 from tests.conftest import REFERENCE_DIR, requires_reference_data
-from text2video_tpu.frontend import native
-from text2video_tpu.frontend.align_english import (
+from text2video.frontend import native
+from text2video.frontend.align_english import (
     EnglishAligner,
     PronouncingDict,
     add_default_stress,
@@ -154,7 +154,7 @@ def fadg0_setup():
             if len(p) == 3 and p[2] != "SIL"
         )
 
-    from text2video_tpu.frontend.audio import load_wav_for_alignment
+    from text2video.frontend.audio import load_wav_for_alignment
 
     pairs = [
         ("input_audio_real/fadg0", "Shehadyour"),
@@ -209,7 +209,7 @@ def fadg0_setup():
     # timestamp outputs (load_word_spans; the packaged-model recipe,
     # tools/make_english_model.py). Measured: Dotheymake mean frame
     # error 3.76 -> ~0.3, Shehadyour -> ~0.6.
-    from text2video_tpu.frontend.align_english import load_word_spans
+    from text2video.frontend.align_english import load_word_spans
 
     def sup(name):
         return load_word_spans(
@@ -343,7 +343,7 @@ def test_align_states_variant(fadg0_setup):
 
 
 def test_number_to_words_and_spelling():
-    from text2video_tpu.frontend.textnorm import number_to_words, spell_numbers
+    from text2video.frontend.textnorm import number_to_words, spell_numbers
 
     assert number_to_words(0) == "zero"
     assert number_to_words(14) == "fourteen"
@@ -361,16 +361,16 @@ def test_number_to_words_and_spelling():
 @requires_reference_data
 def test_packaged_english_model_matches_goldens():
     """The packaged speaker-dependent acoustic model
-    (text2video_tpu/data/english_fadg0.am — the CLI's no-flag default)
+    (text2video/data/english_fadg0.am — the CLI's no-flag default)
     reproduces the reference golden timings without retraining."""
     import os
 
-    from text2video_tpu.frontend.align_english import EnglishAligner
-    from text2video_tpu.frontend.audio import load_wav_for_alignment
+    from text2video.frontend.align_english import EnglishAligner
+    from text2video.frontend.audio import load_wav_for_alignment
 
     pkg = os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "text2video_tpu", "data", "english_fadg0.am",
+        "text2video", "data", "english_fadg0.am",
     )
     aligner = EnglishAligner.load(
         pkg, f"{REFERENCE_DIR}/aligner/english/dict", 25.0
@@ -426,15 +426,15 @@ def test_audio_driven_landmark_mse():
     alignment-induced."""
     import os
 
-    from text2video_tpu.config import get_profile
-    from text2video_tpu.frontend import load_timestamp_file
-    from text2video_tpu.frontend.align_english import EnglishAligner
-    from text2video_tpu.frontend.audio import load_wav_for_alignment
-    from text2video_tpu.pose_stage import PoseStage
+    from text2video.config import get_profile
+    from text2video.frontend import load_timestamp_file
+    from text2video.frontend.align_english import EnglishAligner
+    from text2video.frontend.audio import load_wav_for_alignment
+    from text2video.pose_stage import PoseStage
 
     pkg = os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "text2video_tpu", "data", "english_fadg0.am",
+        "text2video", "data", "english_fadg0.am",
     )
     aligner = EnglishAligner.load(
         pkg, f"{REFERENCE_DIR}/aligner/english/dict", 25.0

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 
 from tests.conftest import REFERENCE_DIR, requires_reference_data
-from text2video_tpu.frontend.align_mandarin import (
+from text2video.frontend.align_mandarin import (
     FINALS,
     INITIALS,
     MANDARIN_PHONES,
@@ -75,8 +75,8 @@ def mandarin_aligner():
     ref = REFERENCE_DIR
     if not os.path.isdir(f"{ref}/input_timestamp/henan"):
         pytest.skip("reference Chinese assets not mounted")
-    from text2video_tpu.frontend import native
-    from text2video_tpu.frontend.audio import load_wav_for_alignment
+    from text2video.frontend import native
+    from text2video.frontend.audio import load_wav_for_alignment
 
     utts = []
     for t in sorted(glob.glob(f"{ref}/input_timestamp/henan/*.txt")):
@@ -103,7 +103,7 @@ def test_forced_alignment_matches_golden_timing(mandarin_aligner):
     (pinyin_timestamping.py:98-106), so exact agreement is impossible;
     the mean bound asserts the same speech regions and the max bound
     caps any single-syllable excursion (30 fps frames)."""
-    from text2video_tpu.frontend.audio import load_wav_for_alignment
+    from text2video.frontend.audio import load_wav_for_alignment
 
     ref = REFERENCE_DIR
     # baidu's max allows one documented excursion: its final six
@@ -140,7 +140,7 @@ def test_boundaries_land_in_energy_dips(mandarin_aligner):
     the local frame energy at the boundary should be <= the peak energy
     of the two adjacent syllables (a boundary sits at a consonantal
     closure / gap, never at the loudest point)."""
-    from text2video_tpu.frontend.audio import load_wav_for_alignment
+    from text2video.frontend.audio import load_wav_for_alignment
 
     ref = REFERENCE_DIR
     name = "今天天气好极了,不冷"
@@ -177,10 +177,10 @@ def xuesong_aligner():
     """The PACKAGED speaker-dependent xuesong model (shipped exactly like
     the henan one; trained by cli train-aligner-zh on the reference's
     xuesong recordings + golden pinyin streams)."""
-    import text2video_tpu
+    import text2video
 
     path = os.path.join(
-        os.path.dirname(text2video_tpu.__file__), "data",
+        os.path.dirname(text2video.__file__), "data",
         "mandarin_xuesong.am",
     )
     if not os.path.exists(path):
@@ -198,7 +198,7 @@ def test_xuesong_golden_timing(xuesong_aligner):
     truncation collisions between text variants) which are excluded from
     packaged-model training the same way (cli train-aligner-zh
     --exclude)."""
-    from text2video_tpu.frontend.audio import load_wav_for_alignment
+    from text2video.frontend.audio import load_wav_for_alignment
 
     ref = REFERENCE_DIR
     checked = 0
@@ -238,8 +238,8 @@ def test_xuesong_golden_timing(xuesong_aligner):
 def test_timestamp_chinese_with_forced_aligner(mandarin_aligner):
     """End-to-end Chinese timing through timestamp_chinese: real audio +
     hanzi text -> monotonic pinyin timestamps with digits expanded."""
-    from text2video_tpu.frontend.audio import load_wav_for_alignment
-    from text2video_tpu.frontend.timestamp_zh import timestamp_chinese
+    from text2video.frontend.audio import load_wav_for_alignment
+    from text2video.frontend.timestamp_zh import timestamp_chinese
 
     name = "今天天气好极了,不冷"
     wav = f"{REFERENCE_DIR}/input_audio/henan/{name}.wav"

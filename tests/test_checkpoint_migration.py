@@ -4,7 +4,7 @@ two-branch-encoder checkpoints are rejected with a clear error."""
 import numpy as np
 import pytest
 
-from text2video_tpu.train.checkpoints import migrate_generator_params
+from text2video.train.checkpoints import migrate_generator_params
 
 
 def _head(rng, out_ch):
@@ -59,7 +59,7 @@ def test_two_branch_encoder_rejected():
 def test_latest_step_dir_skips_incomplete_tmp(tmp_path):
     """A kill mid-save leaves step_*.orbax-checkpoint-tmp; auto-resume
     must skip it and pick the newest COMPLETE checkpoint."""
-    from text2video_tpu.train.checkpoints import latest_step_dir
+    from text2video.train.checkpoints import latest_step_dir
 
     (tmp_path / "step_00000200").mkdir()
     (tmp_path / "step_00000400.orbax-checkpoint-tmp").mkdir()

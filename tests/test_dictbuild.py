@@ -7,25 +7,25 @@ import numpy as np
 import pytest
 
 from tests.conftest import REFERENCE_DIR, requires_reference_data
-from text2video_tpu.dictbuild import (
+from text2video.dictbuild import (
     build_phoneme_dict,
     build_pinyin_dict,
     collect_instances,
     write_phoneme_dict,
     write_pinyin_dict,
 )
-from text2video_tpu.frontend.timestamps import Timestamps
+from text2video.frontend.timestamps import Timestamps
 
 
 @requires_reference_data
 def test_build_phoneme_dict_from_fadg0(tmp_path):
-    from text2video_tpu.frontend.align_english import (
+    from text2video.frontend.align_english import (
         EnglishAligner,
         PronouncingDict,
         train_acoustic_model,
     )
-    from text2video_tpu.frontend.audio import load_wav_for_alignment
-    from text2video_tpu.io.dicts import KeypointTable, PoseDictionary
+    from text2video.frontend.audio import load_wav_for_alignment
+    from text2video.io.dicts import KeypointTable, PoseDictionary
 
     ref = REFERENCE_DIR
     sa1 = "She had your dark suit in greasy wash water all year"
@@ -66,8 +66,8 @@ def test_build_phoneme_dict_from_fadg0(tmp_path):
 
     # The built dictionary drives the pose stage on a real timestamp file
     # (restricted to covered symbols).
-    from text2video_tpu.config import get_profile
-    from text2video_tpu.pose_stage import PoseStage
+    from text2video.config import get_profile
+    from text2video.pose_stage import PoseStage
 
     profile = get_profile("fadg0")
     profile = type(profile)(
@@ -93,7 +93,7 @@ def test_build_pinyin_dict():
 
 
 def test_write_pinyin_dict_roundtrip(tmp_path):
-    from text2video_tpu.io.dicts import PoseDictionary
+    from text2video.io.dicts import PoseDictionary
 
     path = str(tmp_path / "dict_x.txt")
     write_pinyin_dict([("ni", 3), ("hao", 9)], path)
@@ -107,7 +107,7 @@ def test_row_nearest_sparse_table():
     reference's FileNotFoundError."""
     import numpy as np
 
-    from text2video_tpu.io.dicts import KeypointTable
+    from text2video.io.dicts import KeypointTable
 
     face = np.zeros((3, 210))
     pose = np.zeros((3, 75))
@@ -125,7 +125,7 @@ def test_row_nearest_sparse_table():
 
 @requires_reference_data
 def test_load_prompts_and_coverage():
-    from text2video_tpu.dictbuild import load_prompts, prompt_coverage
+    from text2video.dictbuild import load_prompts, prompt_coverage
 
     prompts = load_prompts(f"{REFERENCE_DIR}/prompts/all_pinyin.txt")
     assert len(prompts) >= 400

@@ -3,8 +3,8 @@ pinyin_timestamping.py / phoneme_timestamping.py)."""
 
 import numpy as np
 
-from text2video_tpu.frontend.pinyin import to_pinyin
-from text2video_tpu.frontend.timestamp_zh import (
+from text2video.frontend.pinyin import to_pinyin
+from text2video.frontend.timestamp_zh import (
     EnergySegmenter,
     WordInterval,
     digits_to_pinyin,
@@ -83,7 +83,7 @@ def test_timestamp_chinese_aligner_path_digits_one_to_one():
     one extra interval to step past an exhausted numeric token
     (reference quirk, pinyin_timestamping.py:112-133), which is wrong
     when the aligner provides exactly one span per emitted symbol."""
-    from text2video_tpu.frontend.align_mandarin import (
+    from text2video.frontend.align_mandarin import (
         SyllableSpan,
         expand_walk_stream,
     )

@@ -5,13 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from text2video_tpu.models import (
-    CompositeGenerator,
-    MultiscaleDiscriminator,
-    face_crop,
-)
-from text2video_tpu.models.vgg import VGG19Features, init_params
-from text2video_tpu.ops.warp import flow_warp
+from text2video.models import CompositeGenerator
+from text2video.models.discriminator import MultiscaleDiscriminator, face_crop
+from text2video.models.vgg import VGG19Features, init_params
+from text2video.ops.warp import flow_warp
 
 H, W = 64, 64
 
@@ -119,7 +116,7 @@ def test_flow_loss_chunked_matches_unchunked(monkeypatch):
     the single-gather path, value and gradient."""
     import jax
 
-    from text2video_tpu.models import losses as L
+    from text2video.models import losses as L
 
     rng = np.random.RandomState(0)
     n, h, w, c = 6, 8, 10, 3
@@ -136,50 +133,47 @@ def test_flow_loss_chunked_matches_unchunked(monkeypatch):
     np.testing.assert_allclose(whole_g, chunk_g, rtol=1e-5, atol=1e-7)
 
 
-def test_fused_resblock_matches_plain():
-    """ops/fused_resblock.py (Pallas conv+IN-stats kernel, interpret
-    mode off-TPU) reproduces the plain XLA ResBlock with an IDENTICAL
-    parameter tree — same checkpoints drive both paths; values agree to
-    dtype rounding (stats come from the f32 accumulator)."""
-    import jax
-    import jax.numpy as jnp
-
-    from text2video_tpu.models.layers import ResBlock
-
-    rng = np.random.RandomState(0)
-    for dtype, tol in ((jnp.float32, 2e-5), (jnp.bfloat16, 0.05)):
-        x = jnp.asarray(
-            rng.randn(2, 16, 24, 64).astype(np.float32)
-        ).astype(dtype)
-        plain = ResBlock(64, dtype=dtype)
-        fused = ResBlock(64, dtype=dtype, fused=True)
-        params = plain.init(jax.random.PRNGKey(0), x)
-        assert jax.tree_util.tree_structure(
-            fused.init(jax.random.PRNGKey(0), x)
-        ) == jax.tree_util.tree_structure(params)
-        y0 = np.asarray(plain.apply(params, x), np.float64)
-        y1 = np.asarray(fused.apply(params, x), np.float64)
-        assert np.abs(y0 - y1).max() <= tol, (dtype, np.abs(y0 - y1).max())
+def _tree_shapes(tree):
+    return {
+        "/".join(str(k.key) for k in path): list(leaf.shape)
+        for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]
+    }
 
 
-def test_fused_resblock_odd_sizes():
-    """Non-multiple-of-16 heights pick a smaller row tile; widths are
-    free (the xuesong 896-wide /8 trunk is 112)."""
-    import jax
-    import jax.numpy as jnp
+def _param_tree(name):
+    """Abstract init of each network as the renderer and trainer build it
+    (parameter shapes do not depend on the frame size)."""
+    from text2video.train.trainer import TrainConfig, create_trainer_state
 
-    from text2video_tpu.ops.fused_resblock import conv3x3_stats
+    h = w = 64
+    args = (jnp.zeros((1, h, w, 9)), jnp.zeros((1, h, w, 6)), jnp.ones((1,)))
+    if name == "generator":
+        gen = CompositeGenerator(base_ch=64, n_blocks=9)
+    elif name == "generator_enhancer":
+        gen = CompositeGenerator(base_ch=16, n_blocks=1, n_local_enhancers=1,
+                                 n_local_blocks=1)
+    else:
+        state = jax.eval_shape(lambda: create_trainer_state(
+            TrainConfig(height=h, width=w, face_crop=32, use_vgg=True)))
+        return state.d_params if name == "trainer_d_params" else (
+            state.vgg_params)
+    return jax.eval_shape(lambda: gen.init(jax.random.PRNGKey(0), *args))
 
-    rng = np.random.RandomState(1)
-    for h, w in ((12, 28), (8, 112), (4, 16)):
-        x = jnp.asarray(rng.randn(1, h, w, 128).astype(np.float32))
-        k = jnp.asarray(rng.randn(3, 3, 128, 128).astype(np.float32) * 0.05)
-        b = jnp.asarray(rng.randn(128).astype(np.float32))
-        y, mean, var = conv3x3_stats(x, k, b)
-        assert y.shape == (1, h, w, 128)
-        # stats match a direct reduction of y
-        np.testing.assert_allclose(
-            np.asarray(mean[0]), np.asarray(y[0]).mean((0, 1)),
-            rtol=1e-4, atol=1e-4,
-        )
-        assert np.isfinite(np.asarray(var)).all()
+
+@pytest.mark.parametrize(
+    "name",
+    ["generator", "generator_enhancer", "trainer_d_params",
+     "trainer_vgg_params"],
+)
+def test_param_tree_matches_golden(name):
+    """Key paths and shapes of every network's parameters are pinned to
+    tests/goldens/param_trees.json (the layout existing checkpoints were
+    written with); init values are free."""
+    import json
+    import os
+
+    golden = os.path.join(os.path.dirname(__file__), "goldens",
+                          "param_trees.json")
+    with open(golden) as f:
+        want = json.load(f)[name]
+    assert _tree_shapes(_param_tree(name)) == want

@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from text2video_tpu.parallel.mesh import (
+from text2video.parallel.mesh import (
     batch_sharding,
     make_mesh,
     param_specs,

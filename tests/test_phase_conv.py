@@ -12,9 +12,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from text2video_tpu.models.generator import CompositeGenerator
-from text2video_tpu.models.layers import reflect_pad
-from text2video_tpu.ops.phase_conv import (
+from text2video.models.generator import CompositeGenerator
+from text2video.models.layers import reflect_pad
+from text2video.ops.phase_conv import (
     depth_to_space2,
     down2x_conv_phase,
     head_conv_phase,

@@ -19,9 +19,9 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "goldens", "henan_111")
 
 @pytest.fixture(scope="module")
 def result_and_stage():
-    from text2video_tpu.config import get_profile
-    from text2video_tpu.frontend.timestamps import load_timestamp_file
-    from text2video_tpu.pose_stage import PoseStage
+    from text2video.config import get_profile
+    from text2video.frontend.timestamps import load_timestamp_file
+    from text2video.pose_stage import PoseStage
 
     stage = PoseStage(get_profile("henan"))
     ts = load_timestamp_file(
@@ -38,7 +38,7 @@ def test_chinese_pose_jsons_bit_exact(result_and_stage):
     result, stage = result_and_stage
     golden_names = sorted(os.listdir(os.path.join(GOLDEN, "pose")))
     assert result.num_frames == len(golden_names)
-    from text2video_tpu.io.openpose import dumps_keypoint_json
+    from text2video.io.openpose import dumps_keypoint_json
 
     raws = stage.emit_pose_raws(result)
     for t, name in enumerate(golden_names):
@@ -54,7 +54,7 @@ def test_chinese_pose_jsons_bit_exact(result_and_stage):
 def test_chinese_smooth_jsons_bit_exact(result_and_stage):
     result, stage = result_and_stage
     golden_names = sorted(os.listdir(os.path.join(GOLDEN, "pose_smooth")))
-    from text2video_tpu.io.openpose import dumps_keypoint_json
+    from text2video.io.openpose import dumps_keypoint_json
 
     raws = stage.emit_smooth_raws(result)
     assert len(raws) == len(golden_names)
@@ -70,10 +70,10 @@ def test_unknown_symbols_dropped_with_warning():
     raises."""
     import warnings
 
-    from text2video_tpu.config import get_profile
-    from text2video_tpu.frontend.timestamps import Timestamps
-    from text2video_tpu.io.dicts import KeypointTable, PoseDictionary
-    from text2video_tpu.ops.interp import plan_pose_track
+    from text2video.config import get_profile
+    from text2video.frontend.timestamps import Timestamps
+    from text2video.io.dicts import KeypointTable, PoseDictionary
+    from text2video.ops.interp import plan_pose_track
 
     profile = get_profile("fadg0")
     pdict = PoseDictionary.load(profile.dict_path, "clip")

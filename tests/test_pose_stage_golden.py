@@ -11,14 +11,14 @@ import os
 import numpy as np
 import pytest
 
-from tests.conftest import requires_reference_data
-from text2video_tpu.config import get_profile
-from text2video_tpu.frontend.timestamps import load_timestamp_file
-from text2video_tpu.io.openpose import dumps_keypoint_json
-from text2video_tpu.pose_stage import PoseStage
+from tests.conftest import REFERENCE_DIR, requires_reference_data
+from text2video.config import get_profile
+from text2video.frontend.timestamps import load_timestamp_file
+from text2video.io.openpose import dumps_keypoint_json
+from text2video.pose_stage import PoseStage
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens", "fadg0_Shehadyour")
-TS_FILE = "/root/reference/input_timestamp/fadg0/phones/Shehadyour.txt"
+TS_FILE = f"{REFERENCE_DIR}/input_timestamp/fadg0/phones/Shehadyour.txt"
 
 
 @pytest.fixture(scope="module")
@@ -75,11 +75,10 @@ def test_device_path_subpixel(stage, ts, host_result):
         assert err < 1e-2, f"device/host divergence {err}"
 
 
-@requires_reference_data
 def test_golden_smooth_roundtrip_parse():
     # Smooth goldens use the reference's nested-list quirk; our codec must
     # read them transparently.
-    from text2video_tpu.io.openpose import frame_from_raw
+    from text2video.io.openpose import frame_from_raw
 
     path = os.path.join(GOLDEN, "pose_smooth", "smooth_00010.json")
     with open(path) as f:

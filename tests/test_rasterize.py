@@ -12,9 +12,8 @@ import os
 import numpy as np
 import pytest
 
-from tests.conftest import requires_reference_data
-from text2video_tpu.io.openpose import frame_from_raw
-from text2video_tpu.ops.rasterize import (
+from text2video.io.openpose import frame_from_raw
+from text2video.ops.rasterize import (
     rasterize_batch,
     rasterize_frame_host,
 )
@@ -47,7 +46,6 @@ def _ssim(a, b):
     )
 
 
-@requires_reference_data
 @pytest.mark.parametrize("sub_json,sub_png", [("pose", "png"), ("pose_smooth", "png_smooth")])
 def test_host_rasterizer_pixel_exact(sub_json, sub_png):
     for stem, kf, golden in _golden_frames(sub_json, sub_png):
@@ -55,7 +53,6 @@ def test_host_rasterizer_pixel_exact(sub_json, sub_png):
         assert (mine == golden).all(), f"{sub_json}/{stem} not pixel-exact"
 
 
-@requires_reference_data
 def test_device_rasterizer_ssim():
     frames = _golden_frames("pose", "png")
     face = np.stack([k.face for _, k, _ in frames])
@@ -68,7 +65,6 @@ def test_device_rasterizer_ssim():
         assert s >= 0.96, f"frame {stem}: SSIM {s:.4f}"
 
 
-@requires_reference_data
 def test_device_rasterizer_padding_chunks():
     # Odd chunk size exercises final-chunk padding.
     frames = _golden_frames("pose", "png")[:5]
@@ -94,7 +90,6 @@ def test_empty_keypoints_draw_corner_circles_only():
     assert (img[100:, 100:] == 0).all()
 
 
-@requires_reference_data
 def test_device_rasterizer_highres_henan():
     """Device vs host parity at the henan canvas (1920x1080) — catches
     sample-count / tiling bugs that 512x384 wouldn't."""

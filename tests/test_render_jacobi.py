@@ -13,7 +13,7 @@ convergence) with tolerances that acknowledge the chain amplification.
 
 import numpy as np
 
-from text2video_tpu.render import Renderer
+from text2video.render import Renderer
 
 
 def _renderer(h=32, w=32):
@@ -79,7 +79,7 @@ def test_jacobi_sharded_spans_mesh():
     """One utterance's timeline spans the 8-device mesh; full sweeps
     reproduce the sequential scan (same structural tolerances as the
     single-device Jacobi tests)."""
-    from text2video_tpu.parallel.mesh import make_mesh
+    from text2video.parallel.mesh import make_mesh
 
     r = _renderer()
     mesh = make_mesh(n_data=8, n_model=1)

@@ -4,13 +4,13 @@ the FIR halo-exchange variant kept as the approximate fallback."""
 
 import numpy as np
 
-from text2video_tpu.ops.smooth import (
+from text2video.ops.smooth import (
     smooth_fir_host,
     smooth_fir_sharded,
     smooth_host,
     smooth_recursive_sharded,
 )
-from text2video_tpu.parallel.mesh import make_mesh
+from text2video.parallel.mesh import make_mesh
 
 
 def test_recursive_sharded_byte_equals_host():
@@ -108,10 +108,10 @@ def test_pipeline_utterance_spans_mesh(tmp_path):
     if not has_reference_data():
         pytest.skip("reference data assets not mounted")
 
-    from text2video_tpu.config import PipelineConfig, get_profile
-    from text2video_tpu.frontend.timestamps import load_timestamp_file
-    from text2video_tpu.pipeline import Text2VideoPipeline
-    from text2video_tpu.pose_stage import PoseStage
+    from text2video.config import PipelineConfig, get_profile
+    from text2video.frontend.timestamps import load_timestamp_file
+    from text2video.pipeline import Text2VideoPipeline
+    from text2video.pose_stage import PoseStage
 
     profile = get_profile("fadg0")
     ts = load_timestamp_file(

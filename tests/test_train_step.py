@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from text2video_tpu.parallel.mesh import make_mesh, param_specs
-from text2video_tpu.train.trainer import (
+from text2video.parallel.mesh import make_mesh, param_specs
+from text2video.train.trainer import (
     TrainConfig,
     create_trainer_state,
     make_train_step,
@@ -178,7 +178,7 @@ def test_d_gradients_live_on_fakes():
     import jax.numpy as jnp
     import numpy as np
 
-    from text2video_tpu.train.trainer import (
+    from text2video.train.trainer import (
         TrainConfig,
         create_trainer_state,
         make_train_step,
@@ -262,7 +262,7 @@ def test_safe_grad_accum_hazard_rule():
     """trainer.safe_grad_accum caps per-micro-batch unrolled frames at
     896x512-class resolutions (the measured composed-step NaN hazard)
     and never touches small-canvas or batch-1 configs."""
-    from text2video_tpu.train.trainer import TrainConfig, safe_grad_accum
+    from text2video.train.trainer import TrainConfig, safe_grad_accum
 
     small = TrainConfig(height=384, width=512)
     big = TrainConfig(height=512, width=896)

@@ -9,17 +9,17 @@ import numpy as np
 import pytest
 
 from tests.conftest import REFERENCE_DIR, requires_reference_data
-from text2video_tpu.frontend.audio import ALIGN_SAMPLE_RATE
+from text2video.frontend.audio import ALIGN_SAMPLE_RATE
 
 
 @pytest.fixture(scope="module")
 def english_pool():
-    from text2video_tpu.frontend.align_english import (
+    from text2video.frontend.align_english import (
         EnglishAligner,
         PronouncingDict,
         train_acoustic_model,
     )
-    from text2video_tpu.frontend.audio import load_wav_for_alignment
+    from text2video.frontend.audio import load_wav_for_alignment
 
     ref = REFERENCE_DIR
     pdict = PronouncingDict.load(f"{ref}/aligner/english/dict")
@@ -47,7 +47,7 @@ def english_pool():
 
 @requires_reference_data
 def test_build_and_coverage(english_pool):
-    from text2video_tpu.frontend.tts_concat import ConcatTTS
+    from text2video.frontend.tts_concat import ConcatTTS
 
     aligner, utts = english_pool
     tts = ConcatTTS.build_english(utts, aligner)
@@ -60,8 +60,8 @@ def test_build_and_coverage(english_pool):
 
 @requires_reference_data
 def test_synthesize_is_alignable_round_trip(english_pool):
-    from text2video_tpu.frontend.align_english import strip_stress
-    from text2video_tpu.frontend.tts_concat import ConcatTTS
+    from text2video.frontend.align_english import strip_stress
+    from text2video.frontend.tts_concat import ConcatTTS
 
     aligner, utts = english_pool
     tts = ConcatTTS.build_english(utts, aligner)
@@ -89,7 +89,7 @@ def test_synthesize_is_alignable_round_trip(english_pool):
 
 @requires_reference_data
 def test_fallback_for_missing_phone(english_pool):
-    from text2video_tpu.frontend.tts_concat import ConcatTTS
+    from text2video.frontend.tts_concat import ConcatTTS
 
     aligner, utts = english_pool
     tts = ConcatTTS.build_english(utts[:1], aligner)  # tiny pool
@@ -103,13 +103,13 @@ def test_fallback_for_missing_phone(english_pool):
 def test_mandarin_syllable_units():
     import os
 
-    from text2video_tpu.frontend.align_mandarin import MandarinAligner
-    from text2video_tpu.frontend.audio import load_wav_for_alignment
-    from text2video_tpu.frontend.tts_concat import ConcatTTS
+    from text2video.frontend.align_mandarin import MandarinAligner
+    from text2video.frontend.audio import load_wav_for_alignment
+    from text2video.frontend.tts_concat import ConcatTTS
 
     data = os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "text2video_tpu", "data",
+        "text2video", "data",
     )
     model = None
     for name in ("mandarin_henan.am", "mandarin.am"):
@@ -161,9 +161,9 @@ def test_mandarin_syllable_units():
 def test_pipeline_run_tts_with_concat_voice(english_pool, tmp_path):
     """run_tts with the real-voice backend produces a muxed video whose
     timing comes from aligning the concatenative audio."""
-    from text2video_tpu.config import PipelineConfig, get_profile
-    from text2video_tpu.frontend.tts_concat import ConcatTTS
-    from text2video_tpu.pipeline import Text2VideoPipeline
+    from text2video.config import PipelineConfig, get_profile
+    from text2video.frontend.tts_concat import ConcatTTS
+    from text2video.pipeline import Text2VideoPipeline
 
     aligner, utts = english_pool
     pipe = Text2VideoPipeline(

@@ -3,8 +3,8 @@
 import io
 import json
 
-from text2video_tpu.utils.logging import JsonLogger
-from text2video_tpu.utils.profiling import StageTimer, device_trace
+from text2video.utils.logging import JsonLogger
+from text2video.utils.profiling import StageTimer, device_trace
 
 
 def test_stage_timer_totals_and_report():

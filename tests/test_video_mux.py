@@ -5,7 +5,7 @@ import struct
 import cv2
 import numpy as np
 
-from text2video_tpu.io.video import mux, write_avi_with_audio, write_video
+from text2video.io.video import mux, write_avi_with_audio, write_video
 
 
 def _frames(t=10, h=64, w=96):
@@ -88,8 +88,8 @@ def test_yuv420_roundtrip_matches_cv2():
     exact-ish on flat colors, small on gradients (chroma subsampling)."""
     import jax.numpy as jnp
 
-    from text2video_tpu.io.video import yuv420_to_bgr
-    from text2video_tpu.ops.colorspace import rgb_norm_to_yuv420
+    from text2video.io.video import yuv420_to_bgr
+    from text2video.ops.colorspace import rgb_norm_to_yuv420
 
     # Flat colors: error must be <= 1 gray level.
     for c in [(0, 0, 0), (255, 255, 255), (255, 0, 0), (37, 180, 99)]:
@@ -117,8 +117,8 @@ def test_streaming_muxer_matches_batch_mux(tmp_path):
     containers as mux() with matching frame counts and close pixels."""
     import jax.numpy as jnp
 
-    from text2video_tpu.io.video import StreamingMuxer
-    from text2video_tpu.ops.colorspace import rgb_norm_to_yuv420
+    from text2video.io.video import StreamingMuxer
+    from text2video.ops.colorspace import rgb_norm_to_yuv420
 
     frames = _frames(t=10, h=64, w=96)
     sr = 16000

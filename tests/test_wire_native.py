@@ -11,18 +11,14 @@ at matching pixels.
 import os
 
 import numpy as np
-import pytest
 
-from text2video_tpu.io import wire_native
-from text2video_tpu.ops.dct import (
+from text2video.io import wire_native
+from text2video.ops.dct import (
     ZIGZAG,
     decode_plane_np,
     dct_matrix8,
     quant_tables,
 )
-
-if not wire_native.available():  # pragma: no cover - toolchain always here
-    pytest.skip("native wire codec not built", allow_module_level=True)
 
 
 def _encode_np(plane, q, k):
@@ -67,7 +63,7 @@ def _psnr(a, b):
 def test_decode_bgr_matches_numpy_path():
     """Native fused decode == numpy decode_plane_np + cv2 I420->BGR
     (same dequant kernel; only float-vs-fixed-point rounding differs)."""
-    from text2video_tpu.io.video import yuv420_to_bgr
+    from text2video.io.video import yuv420_to_bgr
 
     h, w = 96, 128
     yq, uq, vq = _coeffs(h=h, w=w)
@@ -108,7 +104,7 @@ def test_jpegs_standard_decodable_and_match():
 def test_streaming_muxer_coeff_path(tmp_path):
     """StreamingMuxer.add_coeffs drives both containers from raw wire
     coefficients via the native codec."""
-    from text2video_tpu.io.video import StreamingMuxer
+    from text2video.io.video import StreamingMuxer
 
     h, w = 96, 128
     yq, uq, vq = _coeffs(h=h, w=w)
@@ -148,14 +144,12 @@ def test_native_unpack_matches_numpy():
     import jax
     import jax.numpy as jnp
 
-    from text2video_tpu.io import wire_native
-    from text2video_tpu.ops.dct import (
+    from text2video.io import wire_native
+    from text2video.ops.dct import (
         _unpack_plane_shift_numpy,
         pack_plane_shift,
     )
 
-    if not wire_native.available():
-        pytest.skip("native wire codec not built")
     rng = np.random.RandomState(0)
     for shape, w in [((4, 8, 8, 12), 5), ((3, 4, 4, 6), 4),
                      ((1, 5, 7, 12), 5)]:

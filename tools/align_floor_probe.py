@@ -40,18 +40,18 @@ def main() -> None:
 
     import numpy as np
 
-    from text2video_tpu.config import DATA_DIR
-    from text2video_tpu.frontend import native
-    from text2video_tpu.frontend.align_english import (
+    from text2video.config import data_root
+    from text2video.frontend import native
+    from text2video.frontend.align_english import (
         EnglishAligner,
         PronouncingDict,
     )
-    from text2video_tpu.frontend.audio import load_wav_for_alignment
+    from text2video.frontend.audio import load_wav_for_alignment
 
-    ref = DATA_DIR
+    ref = data_root()
     am_path = os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "text2video_tpu", "data", "english_fadg0.am",
+        "text2video", "data", "english_fadg0.am",
     )
     model = native.AcousticModel.load(am_path)
     aligner = EnglishAligner(model, PronouncingDict.load(

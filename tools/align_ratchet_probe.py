@@ -41,17 +41,17 @@ def main() -> None:
 
     import numpy as np
 
-    from text2video_tpu.config import DATA_DIR
-    from text2video_tpu.frontend import native
-    from text2video_tpu.frontend.align_english import (
+    from text2video.config import data_root
+    from text2video.frontend import native
+    from text2video.frontend.align_english import (
         EnglishAligner,
         PronouncingDict,
         load_word_spans,
         train_acoustic_model,
     )
-    from text2video_tpu.frontend.audio import load_wav_for_alignment
+    from text2video.frontend.audio import load_wav_for_alignment
 
-    ref = DATA_DIR
+    ref = data_root()
     pdict = PronouncingDict.load(f"{ref}/aligner/english/dict")
 
     def words_of(path):

@@ -10,8 +10,8 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from text2video_tpu.render import Renderer  # noqa: E402
-from text2video_tpu.config import RenderConfig  # noqa: E402
+from text2video.render import Renderer  # noqa: E402
+from text2video.config import RenderConfig  # noqa: E402
 
 
 def main():

@@ -74,9 +74,9 @@ def main() -> None:
     p.add_argument("--clip-len", type=int, default=16)
     args = p.parse_args()
 
-    from text2video_tpu.config import PersonProfile
-    from text2video_tpu.train.checkpoints import load_renderer
-    from text2video_tpu.train.data import PoseClipDataset
+    from text2video.config import PersonProfile
+    from text2video.train.checkpoints import load_renderer
+    from text2video.train.data import PoseClipDataset
 
     dataset = PoseClipDataset(
         images_dir=args.images,

@@ -14,7 +14,7 @@ log() { echo "[henan-r5b $(date +%H:%M:%S)] $*"; }
 # Anchored ps check: a plain pgrep -f self-matched the launcher shell
 # whose cmdline embeds this script's text (the exact failure mode
 # CLAUDE.md warns about); the bracket breaks the self-match.
-while ps -eo cmd | grep -qE "^python -u -m text2video_tpu[.]cli train-gan"; do
+while ps -eo cmd | grep -qE "^python -u -m text2video[.]cli train-gan"; do
   sleep 60
 done
 log "recon trainer exited"
@@ -30,7 +30,7 @@ if [ ! -s out/henan_r5_evals.json ]; then
   if [ ! -f /tmp/henan_adv_done ]; then
     log "stage 2: adv 600 steps"
     while true; do
-      python -u -m text2video_tpu.cli train-gan \
+      python -u -m text2video.cli train-gan \
         --images "$HIMG" --keypoints "$HKP" \
         --ckpt checkpoints/henan_512 --width 896 --height 512 \
         --source-width 1920 --source-height 1080 \
@@ -85,10 +85,10 @@ fi
 
 if ! ls out/render_henan_r5/henan/*.mp4 >/dev/null 2>&1; then
   log "stage 4: render clip"
-  timeout 3600 python -u -m text2video_tpu.cli tts-chinese \
+  timeout 3600 python -u -m text2video.cli tts-chinese \
     "正在为您查询合肥的天气情况" henan f \
     --out out/render_henan_r5 \
-    --aligner-model text2video_tpu/data/mandarin_henan.am \
+    --aligner-model text2video/data/mandarin_henan.am \
     --gan-checkpoint checkpoints/henan_512_selected \
     --tts-pool "$AUD/正在为您查询合肥的天.wav" "正在为您查询合肥的天气情况" \
     > out/render_henan_r5.log 2>&1

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Build the packaged English fadg0 acoustic model
-(text2video_tpu/data/english_fadg0.am — the CLI's no-flag default).
+(text2video/data/english_fadg0.am — the CLI's no-flag default).
 
 Recipe: flat-start monophone training on every available fadg0
 recording, with word-boundary + pronunciation-variant supervision from
@@ -17,7 +17,7 @@ iterations x mixes x feature kind is flat at this floor) plus two
 off-by-3 nasal-closure boundaries in Shehadyour — supervision
 convention, not model capacity.
 
-  python tools/make_english_model.py [--out text2video_tpu/data/english_fadg0.am]
+  python tools/make_english_model.py [--out text2video/data/english_fadg0.am]
 """
 
 import argparse
@@ -33,7 +33,7 @@ def main() -> None:
         "--out",
         default=os.path.join(
             os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-            "text2video_tpu", "data", "english_fadg0.am",
+            "text2video", "data", "english_fadg0.am",
         ),
     )
     ap.add_argument("--iterations", type=int, default=32)
@@ -44,15 +44,15 @@ def main() -> None:
 
     jax.config.update("jax_platforms", "cpu")
 
-    from text2video_tpu.config import DATA_DIR
-    from text2video_tpu.frontend.align_english import (
+    from text2video.config import data_root
+    from text2video.frontend.align_english import (
         PronouncingDict,
         load_word_spans,
         train_acoustic_model,
     )
-    from text2video_tpu.frontend.audio import load_wav_for_alignment
+    from text2video.frontend.audio import load_wav_for_alignment
 
-    ref = DATA_DIR
+    ref = data_root()
     pdict = PronouncingDict.load(f"{ref}/aligner/english/dict")
 
     def words_of(path):

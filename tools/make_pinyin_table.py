@@ -7,7 +7,7 @@ environment; its Unihan-derived *data* tables ship inside the reference's
 vendored venv as auto-generated files (pinyin_dict.py: codepoint ->
 comma-separated tonal readings; phrases_dict.py: phrase -> per-char
 readings). This tool distills them into two compact data files committed
-under text2video_tpu/data/:
+under text2video/data/:
 
   * pinyin_table.tsv  — ``<char>\t<toneless pinyin>`` (first reading),
     loaded by frontend/pinyin.load_table.
@@ -33,7 +33,7 @@ DEFAULT_SRC = (
 )
 OUT_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "text2video_tpu",
+    "text2video",
     "data",
 )
 

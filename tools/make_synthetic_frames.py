@@ -160,7 +160,7 @@ def main() -> None:
     ap.add_argument("--limit", type=int, default=0)
     args = ap.parse_args()
 
-    from text2video_tpu.io.openpose import load_keypoint_frame
+    from text2video.io.openpose import load_keypoint_frame
 
     os.makedirs(args.out, exist_ok=True)
     paths = sorted(

@@ -42,7 +42,7 @@ def main() -> None:
     import jax
     import jax.numpy as jnp
 
-    from text2video_tpu.train.trainer import (
+    from text2video.train.trainer import (
         TrainConfig,
         create_trainer_state,
         make_train_step,

@@ -29,7 +29,7 @@ if ! grep -q '"steps": 1200' checkpoints/henan_512/train_recon.log 2>/dev/null; 
   log "stage 1: recon"
   mkdir -p checkpoints/henan_512
   while true; do
-    python -u -m text2video_tpu.cli train-gan "${train_args[@]}" \
+    python -u -m text2video.cli train-gan "${train_args[@]}" \
       --lambda-adv 0 --lr 5e-4 --steps 1200 --sample-every 300 \
       >> checkpoints/henan_512/train_recon.log 2>&1
     rc=$?; log "recon rc=$rc"; [ $rc -ne 3 ] && break; log "resume..."
@@ -47,7 +47,7 @@ for seg in 1400 1600 1800; do
   if [ ! -d "$snap" ]; then
     log "stage 2: adv segment to step $seg"
     while true; do
-      python -u -m text2video_tpu.cli train-gan "${train_args[@]}" \
+      python -u -m text2video.cli train-gan "${train_args[@]}" \
         --lambda-adv 0.5 --d-lr-scale 0.25 --lr 1e-4 \
         --steps 200 --sample-every 200 \
         >> checkpoints/henan_512/train_adv.log 2>&1
@@ -97,10 +97,10 @@ fi
 if ! ls out/render_henan_r5/henan/*.mp4 >/dev/null 2>&1; then
   sel=$(python -c "import json;print(json.load(open('out/henan_r5_select.json'))['selected'])")
   log "stage 4: render clip from $sel"
-  timeout 3600 python -u -m text2video_tpu.cli tts-chinese \
+  timeout 3600 python -u -m text2video.cli tts-chinese \
     "正在为您查询合肥的天气情况" henan f \
     --out out/render_henan_r5 \
-    --aligner-model text2video_tpu/data/mandarin_henan.am \
+    --aligner-model text2video/data/mandarin_henan.am \
     --gan-checkpoint checkpoints/henan_512_selected \
     --tts-pool "$AUD/正在为您查询合肥的天.wav" "正在为您查询合肥的天气情况" \
     > out/render_henan_r5.log 2>&1

@@ -38,7 +38,7 @@ if ! grep -q '"steps": 1200' checkpoints/xuesong_512/train_recon.log 2>/dev/null
   log "stage 1: recon"
   mkdir -p checkpoints/xuesong_512
   while true; do
-    python -u -m text2video_tpu.cli train-gan "${train_args[@]}" \
+    python -u -m text2video.cli train-gan "${train_args[@]}" \
       --lambda-adv 0 --lr 5e-4 --steps 1200 --sample-every 300 \
       >> checkpoints/xuesong_512/train_recon.log 2>&1
     rc=$?; log "recon rc=$rc"; [ $rc -ne 3 ] && break; log "resume..."
@@ -58,7 +58,7 @@ for seg in 1400 1600 1800; do
   if [ ! -d "$snap" ]; then
     log "stage 2: adv segment to step $seg"
     while true; do
-      python -u -m text2video_tpu.cli train-gan "${train_args[@]}" \
+      python -u -m text2video.cli train-gan "${train_args[@]}" \
         --lambda-adv 0.5 --d-lr-scale 0.25 --lr 1e-4 \
         --steps 200 --sample-every 200 \
         >> checkpoints/xuesong_512/train_adv.log 2>&1
@@ -118,10 +118,10 @@ if [ ! -s out/eval_r5_selected_train.json ]; then
 fi
 if ! ls out/render_xuesong_r5/xuesong/*.mp4 >/dev/null 2>&1; then
   log "stage 5: render artifact clip from $sel"
-  timeout 3600 python -u -m text2video_tpu.cli tts-chinese \
+  timeout 3600 python -u -m text2video.cli tts-chinese \
     "中国海油今天上午发布消息" xuesong f \
     --out out/render_xuesong_r5 \
-    --aligner-model text2video_tpu/data/mandarin_xuesong.am \
+    --aligner-model text2video/data/mandarin_xuesong.am \
     --gan-checkpoint checkpoints/xuesong_512_selected \
     --tts-pool "$AUD/中国海油今天.wav" "$POOL_TEXT" \
     > out/render_xuesong_r5.log 2>&1

@@ -33,7 +33,7 @@ def main() -> None:
     import jax
     import jax.numpy as jnp
 
-    from text2video_tpu.ops.warp import flow_warp
+    from text2video.ops.warp import flow_warp
 
     b, h, w, c = args.b, args.height, args.width, args.c
     dt = jnp.dtype(args.dtype)
